@@ -25,7 +25,7 @@ cfg = ScoringConfig(
 linear = ScoringConfig(match=2, mismatch=-3, gap=-4, mode=cfg.mode)
 
 t0 = time.perf_counter()
-sc = align_score(s1, s2, cfg)  # band kernel on TPU, XLA scan elsewhere
+sc = align_score(s1, s2, cfg)  # the XLA row scan
 dt = time.perf_counter() - t0
 print(f"affine score {sc}  ({dt * 1e3:.1f} ms)  "
       f"[linear -4/col scores {align_score(s1, s2, linear)}]")

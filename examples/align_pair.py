@@ -1,8 +1,8 @@
 """Recover the full optimal alignment of a huge pair in linear space.
 
 The reference can only print the final score; this recovers the whole
-path (bit-parallel Hirschberg bisection on TPU, exact tie-order block
-traceback for general scoring).
+path in linear space (block-checkpointed traceback over the device row
+scan, with the reference's tie order).
 
 Usage: python examples/align_pair.py SEQ1.bdna SEQ2.bdna [OUT.txt]
 """

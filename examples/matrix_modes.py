@@ -28,12 +28,12 @@ cfg = ScoringConfig(gap=-2, matrix=dna(match=2, transition=-1,
                                        transversion=-3), mode=mode)
 
 t0 = time.perf_counter()
-sc = align_score(s1, s2, cfg)  # band kernel (profile planes) on TPU
+sc = align_score(s1, s2, cfg)  # the XLA row scan (matrix gather)
 dt = time.perf_counter() - t0
 print(f"{mode.value} matrix score {sc}  ({dt * 1e3:.1f} ms)")
 
 t0 = time.perf_counter()
-sc2, a1, a2 = align(s1, s2, cfg)  # device locate + k-way band recovery
+sc2, a1, a2 = align(s1, s2, cfg)  # locate the core, then align it
 dt = time.perf_counter() - t0
 assert sc2 == sc
 w = 72

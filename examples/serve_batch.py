@@ -1,8 +1,8 @@
 """Serving pattern: score a batch of query/text pairs in ONE device dispatch.
 
-Through a high-latency host link (or a busy serving loop) per-pair dispatch
-round trips dominate small alignments; `align_score_batch` pads the batch to
-one shape bucket and runs every pair in a single kernel launch.
+In a serving loop, per-pair dispatches dominate small alignments;
+`align_score_batch` pads the batch to one shape bucket and scores every pair
+in one device dispatch (the row scan vmapped over the batch).
 
 Usage: python examples/serve_batch.py  (synthesizes a demo batch)
 """

@@ -1,8 +1,8 @@
 // tpu-align native support library.
 //
 // The reference's native layer IS its compute path (C++ kernels, x86 spin-wait
-// assembly, MPI calls).  In the TPU build the compute path is Pallas/XLA; what
-// remains usefully native is the host-side runtime around it:
+// assembly, MPI calls).  Here the compute path is XLA and CUDA on the device;
+// what remains usefully native is the host-side runtime around it:
 //
 //   * a fast, independent CPU scorer used as a validation oracle for the big
 //     corpus pairs (the NumPy oracle needs tens of seconds at 50 KB sequences;
@@ -119,7 +119,7 @@ int64_t align_score_native(const int8_t* s1, int64_t m,
 // Affine-gap (Gotoh) row-scan score in O(M) memory: a run of L gap
 // columns costs open + L*ext (both <= 0).  Sequential three-row
 // recurrence — the independent verifier for the JAX affine engines
-// (tpualign/ops/xla.py, ops/band.py's affine mode).
+// (tpualign/ops/xla.py).
 //   mode 0: global, boundaries H(0,j) = open + j*ext;  mode 1: local.
 int64_t affine_score_native(const int8_t* s1, int64_t m,
                             const int8_t* s2, int64_t n,
@@ -222,9 +222,9 @@ int64_t traceback_native(const int8_t* s1, int64_t m,
   return len;
 }
 
-// Matrix-aware full-table fill + traceback walk (round 5): the leaf walker
-// for matrix-scored global/local cores recovered by the device k-way splits
-// (tpualign/ops/band_align.py).  Same contract as traceback_native with a
+// Matrix-aware full-table fill + traceback walk (round 5): the full-table
+// walk for matrix-scored global/local problems (tpualign/utils/native.py
+// traceback).  Same contract as traceback_native with a
 // substitution matrix (mat[a*K+b], int64, or nullptr for pair scoring):
 // ops path from the END (0 diag / 1 up / 2 left), returns length, score and
 // start cell via score_out.  Tie order diag > up > left, identical to

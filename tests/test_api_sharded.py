@@ -1,7 +1,7 @@
 """API-level dispatch to the sharded engines (verdict r1 item #4).
 
 The reference's distributed fills are first-class drivers
-(``mpi-vert-driver.cpp``); here ``impl='strips'/'bitpal-strips'`` must be
+(``mpi-vert-driver.cpp``); here ``impl='strips'`` must be
 reachable through the public ``align_score`` on a multi-device process —
 exercised on the 8-virtual-device CPU mesh (conftest).
 """
@@ -13,15 +13,6 @@ from tpualign.api import align_score, resolve_impl
 from tpualign.config import AlignMode, EngineConfig, ScoringConfig
 from tpualign.io.bdna import random_pair
 from tpualign.ops import oracle
-
-
-def test_align_score_bitpal_strips():
-    s1, s2 = random_pair(96, 320, seed=1)
-    got = align_score(
-        s1, s2, ScoringConfig(),
-        EngineConfig(impl="bitpal-strips", chunk_rows=32, interpret=True),
-    )
-    assert got == oracle.score(s1, s2, ScoringConfig())
 
 
 def test_align_score_strips_general():
@@ -38,35 +29,24 @@ def test_align_score_strips_sw():
     assert got == oracle.score(s1, s2, cfg)
 
 
-def test_bitpal_strips_falls_back_outside_family():
-    # non-family scoring through the bit-parallel sharded engine falls back
-    # to the general sharded engine rather than erroring
-    s1, s2 = random_pair(100, 60, seed=4)
-    cfg = ScoringConfig(match=2, mismatch=1, gap=-2)
-    got = align_score(
-        s1, s2, cfg, EngineConfig(impl="bitpal-strips", chunk_rows=32,
-                                  interpret=True)
-    )
-    assert got == oracle.score(s1, s2, cfg)
+def test_resolve_impl_sharded_gates():
+    # on a multi-device process, big plain-affine shapes resolve sharded;
+    # linear configs stay on one device (bitpal on Hopper, else xla)
+    from tpualign.api import Capabilities, choose_engine
 
-
-def test_resolve_impl_sharded_gates(monkeypatch):
-    # on a simulated multi-device TPU process, big shapes resolve sharded
-    import tpualign.api as api
-
-    monkeypatch.setattr(api, "_platform", lambda: "tpu")
     n_dev = 8
+    big = 4096 * n_dev
     unit = ScoringConfig()
     sw = ScoringConfig(mode=AlignMode.LOCAL)
-    big = 4096 * n_dev
-    assert resolve_impl(EngineConfig(), unit, (big, big)) == "bitpal-strips"
-    # non-family sharded problems get the band kernel inside every shard
-    # (round 3 — the hybrid-vert successor), not the portable row scan
-    assert resolve_impl(EngineConfig(), sw, (big, big)) == "band-strips"
-    # small problems stay single-chip
-    assert resolve_impl(EngineConfig(), unit, (5000, 5000)) == "bitpal"
-    assert resolve_impl(EngineConfig(), sw, (5000, 5000)) == "band"
+    aff = ScoringConfig(match=2, mismatch=-3, gap_open=-5, gap_extend=-2)
+
+    def pick(cfg, shape, backend="gpu", cc="9.0"):
+        return choose_engine(Capabilities(backend, cc, n_dev, cfg, shape))
+
+    assert pick(aff, (big, big)) == "strips"
+    assert pick(aff, (5000, 5000)) == "xla"  # small problems stay single
+    assert pick(unit, (big, big)) == "bitpal"
+    assert pick(unit, (big, big), backend="cpu", cc=None) == "xla"
+    assert pick(sw, (big, big)) == "xla"
     # explicit impl always wins
-    assert resolve_impl(
-        EngineConfig(impl="xla"), unit, (big, big)
-    ) == "xla"
+    assert resolve_impl(EngineConfig(impl="xla"), unit, (big, big)) == "xla"

@@ -1,11 +1,14 @@
-"""Bit-parallel engine: bigint spec vs scalar oracle, Pallas kernel vs spec.
+"""Bit-parallel score: the plain references and the kernel's host side.
 
-The bigint implementation is the executable specification of the plane
-algebra (derived in ``ops/bitpal.py``); the Pallas kernel must agree with it
-bit-exactly, and both must agree with the scalar DP oracle — the same
-cross-implementation score-equality discipline the reference used across its
-16 kernels (SURVEY.md §4)."""
+``score_bigint`` (the whole column in one Python integer) is checked
+against the scalar DP oracle; ``planes_reference`` (the CUDA kernel's own
+word step, word by word) stands in for the kernel's output so that the
+packing, padding, orientation and score reduction around it are checked
+here on the CPU.  The compiled kernel runs in ``tests_gpu/``.
+"""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -15,10 +18,20 @@ from tpualign.ops import bitpal, oracle
 
 from conftest import reference_pair
 
-# interpreted-Pallas heavyweight: runs in the full tier only (see pyproject markers)
-pytestmark = pytest.mark.slow
-
 UNIT = ScoringConfig()  # (1, 0, -1): the reference scheme
+
+
+def host_score(s1, s2, cfg):
+    """The kernel wrapper's pipeline with the reference planes in place of
+    the FFI call: orientation, packing, planes, masked reduction."""
+    m, n = len(s1), len(s2)
+    q, t = (s1, s2) if bitpal.orientation(m, n) else (s2, s1)
+    nq, mt = len(q), len(t)
+    nw = bitpal.words(nq)
+    eq = bitpal.eq_words(jnp.asarray(q, jnp.int32), nw)
+    planes = bitpal.planes_reference(t, np.asarray(eq), bitpal.family(cfg)[1])
+    valid = jnp.asarray(bitpal.valid_mask(nq, nw))
+    return int(bitpal.reduce_planes(jnp.asarray(planes), valid, nq, mt, cfg))
 
 
 def test_supported_scale():
@@ -46,196 +59,23 @@ def test_bigint_matches_oracle_random(rng):
             m, n, a, s1.tolist(), s2.tolist())
 
 
+def test_bigint_any_code_matches_oracle(rng):
+    # every 4-bit code matches itself, as in the oracle (gap byte included)
+    for _ in range(20):
+        s1 = rng.integers(0, 16, int(rng.integers(1, 90))).astype(np.int8)
+        s2 = rng.integers(0, 16, int(rng.integers(1, 90))).astype(np.int8)
+        assert bitpal.score_bigint(s1, s2) == oracle.score(s1, s2, UNIT)
+
+
 @pytest.mark.parametrize(
     "m,n",
-    [(1, 1), (1, 40), (40, 1), (30, 30), (31, 31), (32, 33), (62, 61),
-     (63, 64), (93, 200), (200, 93), (130, 130)],
+    [(1, 1), (1, 40), (40, 1), (31, 33), (32, 32), (63, 64), (64, 64),
+     (65, 64), (64, 65), (129, 70), (70, 129), (200, 93)],
 )
 def test_kernel_matches_bigint_word_edges(m, n):
+    # word edges at 64 rows: the reference planes through the host pipeline
     s1, s2 = random_pair(m, n, seed=m * 1000 + n)
-    got = bitpal.score(s1, s2, UNIT, interpret=True)
-    assert got == bitpal.score_bigint(s1, s2)
-
-
-def test_kernel_matches_oracle_random(rng):
-    for _ in range(15):
-        m = int(rng.integers(1, 300))
-        n = int(rng.integers(1, 300))
-        s1, s2 = random_pair(m, n, seed=int(rng.integers(1 << 30)))
-        assert bitpal.score(s1, s2, UNIT, interpret=True) == oracle.score(
-            s1, s2, UNIT
-        )
-
-
-def test_kernel_scaled_scoring():
-    s1, s2 = random_pair(90, 77, seed=5)
-    cfg = ScoringConfig(match=4, mismatch=0, gap=-4)
-    assert bitpal.score(s1, s2, cfg, interpret=True) == oracle.score(s1, s2, cfg)
-
-
-def test_kernel_empty_and_unsupported():
-    s1, s2 = random_pair(10, 10, seed=0)
-    assert bitpal.score(np.empty(0, np.int8), s2, UNIT) == -10
-    # (2, 1, -2) is genuinely outside the (1, 0, -g) family (family() is None)
-    with pytest.raises(ValueError):
-        bitpal.score(s1, s2, ScoringConfig(match=2, mismatch=1, gap=-2))
-
-
-def test_kernel_multiword_slots(rng):
-    # >128 words forces multiple sublane rows of word slots
-    m, n = 129 * bitpal.WORD + 7, 500
-    s1, s2 = random_pair(m, n, seed=77)
-    assert bitpal.score(s1, s2, UNIT, interpret=True) == bitpal.score_bigint(
-        s1, s2
-    )
-
-
-def test_kernel_lean_and_base_paths_agree():
-    # both flagship schedules (round-3 lean: concat shifts, split hand-off
-    # planes, complement state vs the round-2 packed-word base) must agree
-    # with the bigint spec; the multi-lane shape exercises the pend lane
-    # hand-off in each
-    m, n = 129 * bitpal.WORD + 7, 500
-    s1, s2 = random_pair(m, n, seed=42)
-    want = bitpal.score_bigint(s1, s2)
-    for lean in (True, False):
-        fn = bitpal.score_fn(m, n, UNIT, interpret=True, lean=lean)
-        assert int(fn(np.asarray(s1), np.asarray(s2))) == want, lean
-
-
-def test_lean_and_base_chunked_paths_agree(rng):
-    # the lean flag also switches the resumable chunk kernels (plain and
-    # rc): both schedules vs oracle through the beyond-SMEM text path
-    import jax.numpy as jnp
-
-    for rc in (1, 4):
-        m = int(rng.integers(200, 400))
-        n = int(rng.integers(40, 200))
-        s1, s2 = random_pair(m, n, seed=7000 + rc)
-        want = oracle.score(s1, s2, UNIT)
-        d1, d2 = jnp.asarray(s1, jnp.int32), jnp.asarray(s2, jnp.int32)
-        for lean in (True, False):
-            fn = bitpal.score_fn(
-                m, n, UNIT, interpret=True, text_cap=64,
-                cols_per_step=rc, lean=lean,
-            )
-            assert int(fn(d1, d2)) == want, (rc, lean)
-
-
-def test_lean_and_base_batch_kernel_agree(rng):
-    # the batch serving kernel's lean/base inner steps vs oracle
-    import jax.numpy as jnp
-
-    texts, queries, want = [], [], []
-    for i in range(4):
-        m = int(rng.integers(10, 150))
-        n = int(rng.integers(10, 120))
-        s1, s2 = random_pair(m, n, seed=8000 + i)
-        texts.append(s1)
-        queries.append(s2)
-        want.append(oracle.score(s1, s2, UNIT))
-    m_cap = max(len(t) for t in texts)
-    n_cap = max(len(q) for q in queries)
-    tp = jnp.stack([jnp.pad(jnp.asarray(t, jnp.int32),
-                            (0, m_cap - len(t))) for t in texts])
-    qp = jnp.stack([jnp.pad(jnp.asarray(q, jnp.int32),
-                            (0, n_cap - len(q))) for q in queries])
-    mts = jnp.asarray([len(t) for t in texts], jnp.int32)
-    nqs = jnp.asarray([len(q) for q in queries], jnp.int32)
-    for lean in (True, False):
-        fn = bitpal.score_batch_fn(
-            len(texts), m_cap, n_cap, UNIT, interpret=True, lean=lean
-        )
-        assert fn(tp, qp, mts, nqs).tolist() == want, lean
-
-
-def test_chunked_text_path(rng):
-    # force the beyond-SMEM text path with a tiny cap
-    import jax.numpy as jnp
-    for _ in range(5):
-        m = int(rng.integers(100, 400))
-        n = int(rng.integers(5, 200))
-        s1, s2 = random_pair(m, n, seed=int(rng.integers(1 << 30)))
-        fn = bitpal.score_fn(m, n, UNIT, interpret=True, text_cap=64)
-        got = int(fn(jnp.asarray(s1, jnp.int32), jnp.asarray(s2, jnp.int32)))
-        assert got == oracle.score(s1, s2, UNIT), (m, n)
-
-
-def test_chunked_text_rc_variants(rng):
-    # the resumable R-column chunk kernel vs oracle, rc x scaled-family fuzz
-    # (auto selection already routes small-word-count problems here; this
-    # pins every rc explicitly, incl. the 1-column kernel the sharded
-    # pipeline uses)
-    import jax.numpy as jnp
-    for rc in (1, 2, 3, 4):
-        m = int(rng.integers(150, 400))
-        n = int(rng.integers(5, 200))
-        s1, s2 = random_pair(m, n, seed=int(rng.integers(1 << 30)))
-        cfg = UNIT if rc % 2 else ScoringConfig(match=2, mismatch=0, gap=-2)
-        fn = bitpal.score_fn(
-            m, n, cfg, interpret=True, text_cap=64, cols_per_step=rc
-        )
-        got = int(fn(jnp.asarray(s1, jnp.int32), jnp.asarray(s2, jnp.int32)))
-        assert got == oracle.score(s1, s2, cfg), (rc, m, n)
-
-
-def test_rc_rejects_higher_g():
-    # the R-column pack layout is g=1-only; explicit rc with g>=2 must raise
-    s1, s2 = random_pair(50, 40, seed=0)
-    with pytest.raises(ValueError):
-        bitpal.score_fn(50, 40, ScoringConfig(gap=-2), cols_per_step=2)
-
-
-def test_score_batch(rng):
-    texts, queries, want = [], [], []
-    for i in range(6):
-        m = int(rng.integers(1, 200))
-        n = int(rng.integers(1, 150))
-        s1, s2 = random_pair(m, n, seed=1000 + i)
-        texts.append(s1)
-        queries.append(s2)
-        want.append(oracle.score(s1, s2, UNIT))
-    got = bitpal.score_batch(texts, queries, UNIT, interpret=True)
-    assert got.tolist() == want
-
-
-def test_score_batch_degenerate():
-    texts = [np.asarray([1, 2, 3], np.int8), np.empty(0, np.int8),
-             np.asarray([4], np.int8)]
-    queries = [np.empty(0, np.int8), np.asarray([1, 2], np.int8),
-               np.asarray([4, 4], np.int8)]
-    got = bitpal.score_batch(texts, queries, UNIT, interpret=True)
-    assert got.tolist() == [-3, -2, 0]
-
-
-def test_api_batch_dispatch(rng):
-    import tpualign
-
-    texts, queries, want = [], [], []
-    for i in range(4):
-        s1, s2 = random_pair(int(rng.integers(1, 80)), int(rng.integers(1, 80)),
-                             seed=2000 + i)
-        texts.append(s1)
-        queries.append(s2)
-        want.append(oracle.score(s1, s2, UNIT))
-    got = tpualign.align_score_batch(texts, queries)
-    assert got.tolist() == want
-    # non-family configs take the per-pair fallback
-    cfg = ScoringConfig(match=2, mismatch=1, gap=-2)
-    got2 = tpualign.align_score_batch(texts, queries, cfg)
-    assert got2.tolist() == [oracle.score(t, q, cfg) for t, q in zip(texts, queries)]
-
-
-@pytest.mark.parametrize("rc", [2, 3, 4])
-def test_rc_kernel(rc, rng):
-    import jax.numpy as jnp
-    for _ in range(4):
-        m = int(rng.integers(1, 300))
-        n = int(rng.integers(1, 300))
-        s1, s2 = random_pair(m, n, seed=int(rng.integers(1 << 30)))
-        fn = bitpal.score_fn(m, n, UNIT, interpret=True, cols_per_step=rc)
-        got = int(fn(jnp.asarray(s1, jnp.int32), jnp.asarray(s2, jnp.int32)))
-        assert got == oracle.score(s1, s2, UNIT), (rc, m, n)
+    assert host_score(s1, s2, UNIT) == bitpal.score_bigint(s1, s2)
 
 
 @pytest.mark.parametrize(
@@ -245,11 +85,11 @@ def test_rc_kernel(rc, rng):
 def test_affine_equivalent_scoring_family(match, mismatch, gap, rng):
     cfg = ScoringConfig(match=match, mismatch=mismatch, gap=gap)
     assert bitpal.supported_scale(cfg) is not None
-    for _ in range(4):
-        m = int(rng.integers(1, 150))
-        n = int(rng.integers(1, 150))
+    for _ in range(3):
+        m = int(rng.integers(1, 100))
+        n = int(rng.integers(1, 100))
         s1, s2 = random_pair(m, n, seed=int(rng.integers(1 << 30)))
-        got = bitpal.score(s1, s2, cfg, interpret=True)
+        got = host_score(s1, s2, cfg)
         assert got == oracle.score(s1, s2, cfg), (match, mismatch, gap, m, n)
 
 
@@ -269,82 +109,106 @@ def test_generalized_gap_family(match, mismatch, gap, rng):
     cfg = ScoringConfig(match=match, mismatch=mismatch, gap=gap)
     fam = bitpal.family(cfg)
     assert fam is not None and fam[1] >= 2, fam
-    for _ in range(4):
-        m = int(rng.integers(1, 220))
-        n = int(rng.integers(1, 220))
+    for _ in range(3):
+        m = int(rng.integers(1, 140))
+        n = int(rng.integers(1, 140))
         s1, s2 = random_pair(m, n, seed=int(rng.integers(1 << 30)))
-        got = bitpal.score(s1, s2, cfg, interpret=True)
+        got = host_score(s1, s2, cfg)
         assert got == oracle.score(s1, s2, cfg), (match, mismatch, gap, m, n)
 
 
-def test_chunked_text_generalized_gap(rng):
-    import jax.numpy as jnp
-    cfg = ScoringConfig(gap=-2)
-    for _ in range(3):
-        m = int(rng.integers(100, 350))
-        n = int(rng.integers(5, 150))
-        s1, s2 = random_pair(m, n, seed=int(rng.integers(1 << 30)))
-        fn = bitpal.score_fn(m, n, cfg, interpret=True, text_cap=64)
-        got = int(fn(jnp.asarray(s1, jnp.int32), jnp.asarray(s2, jnp.int32)))
-        assert got == oracle.score(s1, s2, cfg), (m, n)
+@pytest.mark.parametrize("g", range(1, 8))
+def test_word_step_matches_bigint_one_word(g, rng):
+    # a single word: the word step alone against the whole-column bigint
+    cfg = ScoringConfig(gap=-g)
+    s1 = rng.integers(1, 5, 64).astype(np.int8)
+    s2 = rng.integers(1, 5, 37).astype(np.int8)
+    assert host_score(s1, s2, cfg) == oracle.score(s1, s2, cfg)
 
 
-def test_score_batch_generalized_gap(rng):
-    cfg = ScoringConfig(gap=-2)
-    texts, queries, want = [], [], []
-    for i in range(4):
-        m = int(rng.integers(1, 150))
-        n = int(rng.integers(1, 120))
-        s1, s2 = random_pair(m, n, seed=3000 + i)
-        texts.append(s1)
-        queries.append(s2)
-        want.append(oracle.score(s1, s2, cfg))
-    got = bitpal.score_batch(texts, queries, cfg, interpret=True)
-    assert got.tolist() == want
+def test_eq_words_packing(rng):
+    q = rng.integers(0, 16, 150).astype(np.int32)
+    nw = bitpal.words(q.size)
+    eq = np.asarray(bitpal.eq_words(jnp.asarray(q), nw))
+    assert eq.shape == (nw, bitpal.CODES, 2) and eq.dtype == np.uint32
+    words = eq[..., 0].astype(np.uint64) | eq[..., 1].astype(np.uint64) << 32
+    for row in range(nw * bitpal.WORD):
+        w, bit = divmod(row, bitpal.WORD)
+        hits = [c for c in range(bitpal.CODES)
+                if (int(words[w, c]) >> bit) & 1]
+        assert hits == ([int(q[row])] if row < q.size else []), row
 
 
-def test_suspend_resume_checkpoint(rng):
-    """The resumable chunk state IS a checkpoint: a run can stop after any
-    chunk, round-trip its (B+3)-plane state through host memory (or disk),
-    and continue in a fresh computation to a bit-identical score — the
-    fault-tolerance story the reference lacks entirely (SURVEY.md §5)."""
-    import jax.numpy as jnp
+@pytest.mark.parametrize("nq", [1, 31, 32, 33, 63, 64, 65, 128, 130])
+def test_valid_mask_padding(nq):
+    nw = bitpal.words(nq)
+    mask = bitpal.valid_mask(nq, nw)
+    assert mask.shape == (nw, 2) and mask.dtype == np.uint32
+    total = sum(bin(int(x)).count("1") for x in mask.ravel())
+    assert total == nq
+    words = mask[:, 0].astype(np.uint64) | mask[:, 1].astype(np.uint64) << 32
+    for w in range(nw - 1):
+        assert int(words[w]) == (1 << 64) - 1
+    assert int(words[-1]) == (1 << (nq - 64 * (nw - 1))) - 1
 
-    from tpualign.ops.bitpal import (
-        _eq_planes, _layout, _reduce_score, _valid_mask, chunk_call,
-        init_chunk_state,
-    )
 
-    m, n = 500, 300
-    s1, s2 = random_pair(m, n, seed=99)
-    nw, rows, _ = _layout(n, m, 2)
-    eq = _eq_planes(jnp.asarray(s2, jnp.int32), n, nw, rows)
-    t_steps = 64
-    n_chunks = -(-(m + 2 * (nw - 1)) // t_steps)
-    tpad = np.zeros(n_chunks * t_steps, np.int32)
-    tpad[:m] = s1
-    shifts = np.arange(8) * 4
-    tpacked = jnp.asarray(
-        (tpad.reshape(n_chunks, t_steps // 8, 8) << shifts).sum(2), jnp.int32
-    )
-    ustream = jnp.zeros(t_steps // 16, jnp.int32)
+def test_reduce_planes_ignores_padding_rows():
+    # junk in the padding rows of the last word must not reach the score
+    nq, mt = 70, 10
+    nw = bitpal.words(nq)
+    ones = np.full((nw, 2, 2), 0xFFFFFFFF, np.uint32)  # enc 3 on every row
+    valid = jnp.asarray(bitpal.valid_mask(nq, nw))
+    got = int(bitpal.reduce_planes(jnp.asarray(ones), valid, nq, mt, UNIT))
+    assert got == 3 * nq - (mt + nq)
 
-    def run(state, lo, hi):
-        for q in range(lo, hi):
-            state, _ = chunk_call(
-                jnp.asarray([q * t_steps, m], jnp.int32), tpacked[q],
-                ustream, eq, state, rows=rows, t_steps=t_steps,
-                r_star=None, unroll=2, interpret=True,
-            )
-        return state
 
-    half = n_chunks // 2
-    state = run(init_chunk_state(rows), 0, half)
-    # suspend: snapshot to host (what a checkpoint write would persist)
-    snapshot = [np.asarray(x) for x in state]
-    # resume from the snapshot in "another process"
-    restored = tuple(jnp.asarray(x) for x in snapshot)
-    state = run(restored, half, n_chunks)
-    valid = jnp.asarray(_valid_mask(n, nw, rows))
-    got = int(_reduce_score(state[:2], valid, m, n))
-    assert got == oracle.score(s1, s2, UNIT)
+def test_orientation_longer_sequence_is_query():
+    assert bitpal.orientation(100, 50) is True
+    assert bitpal.orientation(50, 100) is False
+    assert bitpal.orientation(64, 64) is True
+    s1, s2 = random_pair(40, 150, seed=3)
+    assert host_score(s1, s2, UNIT) == host_score(s2, s1, UNIT) == \
+        oracle.score(s1, s2, UNIT)
+
+
+def test_scratch_layout():
+    # a 256-byte header (the warp ticket), then one mt-byte stream per
+    # warp of 32 words
+    assert bitpal.scratch_bytes(1, 10) == 256 + 10
+    assert bitpal.scratch_bytes(32, 10) == 256 + 10
+    assert bitpal.scratch_bytes(33, 10) == 256 + 2 * 10
+    nw = bitpal.words(126440)
+    assert bitpal.scratch_bytes(nw, 127240) == 256 + 62 * 127240
+
+
+def test_fits_envelope():
+    assert bitpal.fits(UNIT, 126440, 127240)
+    assert not bitpal.fits(UNIT, 0, 10)
+    assert not bitpal.fits(ScoringConfig(mode=AlignMode.LOCAL), 10, 10)
+    assert not bitpal.fits(ScoringConfig(match=2, mismatch=1, gap=-2), 10, 10)
+    # int32 headroom of the mapped score
+    big = ScoringConfig(match=1000, mismatch=0, gap=-1000)
+    assert bitpal.fits(big, 1000, 1000)
+    assert not bitpal.fits(big, 10**6, 10**6)
+    # scratch ceiling: one byte per text column per warp
+    assert not bitpal.fits(UNIT, 10**8, 10**8)
+
+
+def test_planes_call_shapes():
+    # the FFI call's abstract signature, without the CUDA library
+    text = jax.ShapeDtypeStruct((300,), jnp.uint8)
+    for g in (1, 2, 4, 7):
+        eq = jax.ShapeDtypeStruct((5, bitpal.CODES, 2), jnp.uint32)
+        out = jax.eval_shape(lambda t, e: bitpal.planes_call(t, e, g),
+                             text, eq)
+        assert out.shape == (5, bitpal.plane_bits(g), 2)
+        assert out.dtype == jnp.uint32
+
+
+def test_score_empty_and_unsupported():
+    s2 = np.ones(10, np.int8)
+    assert bitpal.score(np.empty(0, np.int8), s2, UNIT) == -10
+    assert bitpal.score(s2, np.empty(0, np.int8),
+                        ScoringConfig(match=3, mismatch=0, gap=-3)) == -30
+    with pytest.raises(ValueError):
+        bitpal.score(s2, s2, ScoringConfig(match=2, mismatch=1, gap=-2))

@@ -71,7 +71,7 @@ def test_info(capsys):
 
 
 def test_bench_infix_no_swap(tmp_path, capsys):
-    """Regression (r4 silicon queue): the bench's longer-first pair swap
+    """Regression: the bench's longer-first pair swap
     must not fire for orientation-asymmetric configs — infix(s1, s2) and
     infix(s2, s1) are different problems, and the swapped row tripped the
     bench's own native gate on the 64gb corpus pair."""

@@ -6,16 +6,12 @@ discipline, randomized: every applicable engine must produce the oracle's
 score for random (lengths, alphabet, scoring, mode) draws."""
 
 import numpy as np
-import pytest
 
 from tpualign.config import AlignMode, ScoringConfig
 from tpualign.io.bdna import random_pair
-from tpualign.ops import band, bitpal, oracle, pallas_diag, xla
-from tpualign.parallel import bitpal_strips, strips
+from tpualign.ops import oracle, xla
+from tpualign.parallel import strips
 from tpualign.parallel.mesh import make_mesh
-
-# interpreted-Pallas heavyweight: runs in the full tier only (see pyproject markers)
-pytestmark = pytest.mark.slow
 
 
 def _random_cfg(rng) -> ScoringConfig:
@@ -29,7 +25,7 @@ def _random_cfg(rng) -> ScoringConfig:
 
 
 def _random_affine_cfg(rng) -> ScoringConfig:
-    # mismatch <= 0 keeps every affine engine in-envelope (band local)
+    # mismatch <= 0: mismatches never score above a gap-free zero
     mode = AlignMode.LOCAL if rng.integers(2) else AlignMode.GLOBAL
     return ScoringConfig(
         match=int(rng.integers(1, 6)),
@@ -41,9 +37,8 @@ def _random_affine_cfg(rng) -> ScoringConfig:
 
 
 def test_cross_engine_affine_fuzz(rng):
-    # same discipline for the Gotoh engines: oracle vs xla scan vs band's
-    # native affine mode vs the sharded (H, E)-halo pipeline vs the
-    # independent C++ scorer
+    # same discipline for the Gotoh engines: oracle vs xla scan vs the
+    # sharded (H, E)-halo pipeline vs the independent C++ scorer
     from tpualign.utils import native
 
     mesh = make_mesh(4)
@@ -55,7 +50,6 @@ def test_cross_engine_affine_fuzz(rng):
         want = oracle.score(s1, s2, cfg)
         got = {
             "xla": xla.score(s1, s2, cfg),
-            "band": band.score(s1, s2, cfg, rows=8, interpret=True),
             "strips": strips.score(s1, s2, cfg, mesh=mesh, chunk_rows=64),
         }
         if native.available():
@@ -73,16 +67,6 @@ def test_cross_engine_fuzz(rng):
         cfg = _random_cfg(rng)
         want = oracle.score(s1, s2, cfg)
         got = {"xla": xla.score(s1, s2, cfg)}
-        try:
-            got["pallas"] = pallas_diag.score(s1, s2, cfg, interpret=True)
-        except ValueError:
-            pass  # outside the natural-boundary envelope (gap > 0 etc.)
-        got["band"] = band.score(s1, s2, cfg, rows=8, interpret=True)
         got["strips"] = strips.score(s1, s2, cfg, mesh=mesh, chunk_rows=64)
-        if bitpal.supported_scale(cfg) is not None:
-            got["bitpal"] = bitpal.score(s1, s2, cfg, interpret=True)
-            got["bitpal_strips"] = bitpal_strips.score(
-                s1, s2, cfg, mesh=mesh, chunk_cols=32, interpret=True
-            )
         for name, v in got.items():
             assert v == want, (trial, name, cfg, m, n, v, want)

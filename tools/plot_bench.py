@@ -8,7 +8,7 @@ in the JSON output.
 
 Usage:
     python tools/plot_bench.py results/sizes.tsv -o sizes.png
-    python tools/plot_bench.py a.tsv b.tsv --labels pallas,xla --speedup b.tsv
+    python tools/plot_bench.py a.tsv b.tsv --labels bitpal,xla --speedup b.tsv
 """
 
 from __future__ import annotations

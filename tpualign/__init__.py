@@ -1,10 +1,11 @@
-"""tpu-align: a TPU-native pairwise sequence-alignment engine.
+"""tpu-align: a pairwise sequence-alignment engine for NVIDIA Hopper GPUs.
 
-Built from scratch in JAX/Pallas with the capability surface of the C++
-reference EricBAndrews/Fast-Needleman-Wunsch (see SURVEY.md): Needleman-Wunsch
-global alignment and Smith-Waterman local alignment over huge DNA pairs, with
-single-chip Pallas wavefront kernels and a multi-chip strip-pipelined fill over
-a ``jax.sharding.Mesh``.
+Built in JAX, with a CUDA kernel through ``jax.ffi``, and with the capability
+surface of the C++ reference EricBAndrews/Fast-Needleman-Wunsch (see
+SURVEY.md): Needleman-Wunsch global alignment and Smith-Waterman local
+alignment over huge DNA pairs, with a bit-parallel score kernel, a portable
+XLA row scan, and a multi-device strip-pipelined fill over a
+``jax.sharding.Mesh``.
 
 Public API:
 

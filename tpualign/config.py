@@ -10,9 +10,8 @@ plain dataclasses:
 
 * :class:`ScoringConfig` — the algorithm: substitution scores, gap penalty, and
   alignment mode (global Needleman-Wunsch vs. local Smith-Waterman).
-* :class:`EngineConfig` — the execution strategy: which kernel implementation,
-  chunk depth for the pipelined multi-chip fill (successor of ``COMMBUF_SIZE``),
-  and tile shape for the blocked kernels (successor of the ``N``/``M`` block dims).
+* :class:`EngineConfig` — the execution strategy: which engine, and the chunk
+  depth of the pipelined multi-device fill (successor of ``COMMBUF_SIZE``).
 """
 
 from __future__ import annotations
@@ -74,7 +73,7 @@ class ScoringConfig:
     # ``gap_open + L * gap_extend`` (both <= 0).  ``None`` = linear gaps
     # (cost ``L * gap``; equivalently gap_open=0, gap_extend=gap).  The
     # reference has no affine mode; this is a beyond-parity capability
-    # served by the oracle/xla/band engines.
+    # served by the oracle and xla engines.
     gap_open: int | None = None
     gap_extend: int | None = None
 
@@ -176,38 +175,43 @@ class ScoringConfig:
 class EngineConfig:
     """Execution-strategy knobs.
 
+    ``impl`` names the engine; ``"auto"`` lets :func:`tpualign.api.resolve_impl`
+    choose from the backend, the scoring and the problem shape:
+
+    * ``bitpal`` -- the bit-parallel CUDA kernel (Hopper GPUs; global scoring
+      affinely reducible to ``(1, 0, -g)``);
+    * ``xla`` -- the portable row scan (every config, every backend);
+    * ``strips`` -- the row scan sharded over a 1-D device mesh;
+    * ``oracle`` -- the NumPy reference.
+
     ``chunk_rows`` is the depth (in DP rows) of one pipelined super-step of the
-    multi-chip strip fill — the TPU successor of the reference's MPI comm-buffer
-    size (``COMMBUF_SIZE`` 1280 ints, ``nw-mpi.hpp:18``, swept by
-    ``src/buf-tune.sh``).  The reference's other tuned dimension — OMP block
-    shape (N=128, M=64, ``sentinel-otf-blocked-mt.cpp:5-6``, swept by
-    ``src/block-tune.sh``) — has no successor knob: the hardware (8, 128)
-    vector shape fixes the tiling (see PARITY.md §2b).
+    multi-device strip fill -- the successor of the reference's MPI
+    comm-buffer size (``COMMBUF_SIZE`` 1280 ints, ``nw-mpi.hpp:18``, swept by
+    ``src/buf-tune.sh``).
     """
 
-    impl: str = "auto"  # single-chip: bitpal|band|band-chunked|pallas|xla|
-    #                     oracle; sharded: bitpal-strips|band-strips|strips
+    impl: str = "auto"
     chunk_rows: int = 2048
-    interpret: bool = False  # run Pallas kernels in interpreter mode (CPU tests)
 
     def __post_init__(self) -> None:
-        if self.impl not in (
-            "auto", "bitpal", "band", "band-chunked", "pallas", "xla",
-            "oracle", "bitpal-strips", "band-strips", "strips",
-        ):
+        if self.impl not in ENGINES:
             raise ValueError(f"unknown impl {self.impl!r}")
         if self.chunk_rows <= 0:
             raise ValueError("chunk_rows must be positive")
 
 
+#: every engine name ``EngineConfig.impl`` accepts
+ENGINES = ("auto", "bitpal", "xla", "strips", "oracle")
+
+
 def ensure_pair_modes(cfg: ScoringConfig, engine: str) -> None:
-    """Reject round-4 configs (substitution matrix / ends-free modes) in
-    engines that predate them; dispatch routes those configs to the band,
-    xla, and oracle engines, which all serve them natively."""
+    """Reject substitution-matrix and ends-free configs in engines that
+    serve pair-scored global/local configs only; dispatch routes those
+    configs to the xla and oracle engines, which serve them natively."""
     if cfg.has_matrix or cfg.is_ends_free:
         raise ValueError(
             f"{engine} serves pair-scored global/local configs; "
-            "matrix/ends-free configs run on the band or xla engines")
+            "matrix/ends-free configs run on the xla engine")
 
 
 DEFAULT_SCORING = ScoringConfig()

@@ -35,7 +35,7 @@ GOLDEN_NW_UNIT = {
 #: (README.md:2 announces it; no kernel exists), so these come from this
 #: repo's independent C++ scorer (``native/bdna_tools.cpp:align_score_native``
 #: — a plain int64 row scan sharing no code with the device engines),
-#: round-3, and exist so no SW number in ``results/`` rests only on the
+#: round-3, and exist so no benchmarked SW number rests only on the
 #: engine that produced it.
 GOLDEN_SW_2_1_2 = {
     "small": 9,

@@ -1,1 +1,2 @@
-"""Alignment kernels: NumPy oracle, pure-XLA scan, and Pallas TPU wavefront."""
+"""Alignment engines: NumPy oracle, pure-XLA row scan, and the bit-parallel
+CUDA kernel for Hopper GPUs."""

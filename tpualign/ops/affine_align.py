@@ -23,8 +23,7 @@ Structure per recursion node (rows split at ``mid = n // 2``):
 Scans are jitted once per power-of-two (columns, rows) bucket: sequences
 pad with a never-matching sentinel (junk stays right of / below the true
 lengths: H flows left-to-right, rows freeze once ``i >= n``), so the
-compile count is O(log^2) of the problem size, not O(nodes) — the same
-discipline as ``hirschberg.align_sharded``'s bucketed solvers.
+compile count is O(log^2) of the problem size, not O(nodes).
 
 Base cases solve a flagged full-table Gotoh (the ``tb/te`` edge waivers
 fold into the F init row and the final-state combine) with the oracle's
@@ -56,14 +55,20 @@ def _check_affine_align_cfg(cfg: ScoringConfig) -> None:
             "modes reduce through ops.ends_free")
 
 
+def _min0(cfg: ScoringConfig) -> int:
+    """Sentinel substitution score (pad rows / post-text chars) in matrix
+    mode: <= 0 and <= every real entry, so dead cells only decay --
+    the same decay guarantee pair scoring gets from ``mismatch <= 0``."""
+    lo, _ = cfg.sub_bounds()
+    return min(0, lo)
+
+
 def _mat17(cfg: ScoringConfig) -> np.ndarray:
     """(17, 17) int64 substitution table: the config's matrix in the top
     corner, the decaying sentinel everywhere else (the scans' pad code
     :data:`_PAD` = 16 rows/cols included) — or the match/mismatch pair
     table when no matrix is set (pad handled by the callers' sentinel,
     which matches nothing)."""
-    from .band import _min0
-
     k = len(cfg.matrix)
     out = np.full((17, 17), _min0(cfg), np.int64)
     out[:k, :k] = np.asarray(cfg.matrix, np.int64)
@@ -246,28 +251,9 @@ def _pad_code(cfg: ScoringConfig) -> int:
     return 16 if cfg.has_matrix else _PAD
 
 
-def _band_rows_ok(cfg: ScoringConfig, m: int, n: int) -> bool:
-    """True when the chunked band kernel can serve this node's (H, F)
-    rows on the accelerator (~100-200 GCUPS vs the XLA scan's ~0.5)."""
-    import jax
-
-    from .band import _wmax
-
-    if m < 8 or n < 2 or (m + n) * _wmax(cfg) > 2**29:
-        return False
-    return jax.default_backend() == "tpu"
-
-
 def _scan(s1: np.ndarray, s2: np.ndarray, cfg: ScoringConfig, tb: int):
     """(H, F) rows (numpy, length m+1) after aligning all of ``s2``."""
     m, n = s1.size, s2.size
-    if _band_rows_ok(cfg, m, n):
-        from .band_chunked import gotoh_rows
-
-        try:
-            return gotoh_rows(s1, s2, cfg, tb)
-        except ValueError:
-            pass  # outside the strip machinery: the XLA scan below
     mb, nb = _bucket(m), _bucket(n)
     s1p = np.full(mb, _pad_code(cfg), np.int32)
     s1p[:m] = s1
@@ -459,8 +445,8 @@ def _locate_flex_fn(mb: int, nb: int, cfg: ScoringConfig, zr: bool,
     """Jitted ``(s1_pad, s2_pad, n, m) -> (br, brj, bc, bci)``: the
     last-row max/argmax and (when ``ext_col``) the last-column running
     max/argmax of the affine fill with (zr, zc) zero boundaries — the
-    Gotoh analog of ``band_align.locate_flex_device``'s extraction, on the
-    portable scan (native argmax conventions: first occurrence)."""
+    Gotoh analog of ``native.locate_flex``'s extraction, on the portable
+    scan (native argmax conventions: first occurrence)."""
     import jax
     import jax.numpy as jnp
 
@@ -557,20 +543,6 @@ def locate_flex(s1, s2, cfg: ScoringConfig, *, anchored: bool = False):
             if int(col[i]) > br:
                 return int(col[i]), i, 0
         return br, n, 0
-    if _band_rows_ok(cfg, m, n):
-        from .band_chunked import gotoh_locate_rows
-
-        try:  # one chunked band fill instead of the ~0.5-GCUPS scan
-            row, col = gotoh_locate_rows(s1, s2, cfg, zr=zr, zc=zc)
-            brj = int(row.argmax())
-            br = int(row[brj])
-            if ext_col:
-                bci = int(col.argmax())
-                if int(col[bci]) > br:
-                    return int(col[bci]), bci, m
-            return br, n, brj
-        except ValueError:
-            pass
     mb, nb = _bucket(m), _bucket(n)
     s1p = np.full(mb, _pad_code(cfg), np.int32)
     s1p[:m] = s1

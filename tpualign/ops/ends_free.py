@@ -6,25 +6,18 @@ Reduction (linear-gap):
 
 1. **Locate the end cell**: argmax over all cells (local), the last
    row + column (semiglobal), or the last row (infix) — the same argmax
-   conventions as the oracle walks.  On TPU this is ONE band fill
-   (``band_align.locate_flex_device``: bottom-aligned boundary rows give
-   the last DP row, a right-column capture plane gives the last column) —
-   ~40 ms at corpus scale against the native CPU scan's minutes; the
-   native O(m)-memory pass (``native.locate_flex``) is the off-device
-   fallback.
+   conventions as the oracle walks -- the native O(m)-memory pass
+   (``native.locate_flex``).
 2. **Locate the start cell** by reversing the prefixes ``s1[:je]``,
    ``s2[:ie]`` and running the *anchored* variant: global (gap-penalized)
    boundaries force every path through the reversed origin — the fixed end
    cell — and the mode's extraction set scans exactly the cells that map
    back to legal start boundaries (reversed last row ``p = ie`` ⇔ original
    row 0; reversed last column ``q = je`` ⇔ original column 0; all cells
-   for local).  Same device pass, reversed inputs.
+   for local).  Same pass, reversed inputs.
 3. **Align the global core** ``s1[j0:je] × s2[i0:ie]``: pair-scored cores
    ride the classic engines through :func:`tpualign.api.align`; matrix
-   cores ride the band k-way machinery (``band_align.align_global`` —
-   profile planes in the strip kernel, matrix-aware native leaf walks),
-   with a Hirschberg bisection over ``native.last_row_flex`` as the
-   off-device fallback.
+   cores take a Hirschberg bisection over ``native.last_row_flex``.
 
 Like the SW paths, the returned strings cover the aligned core only.
 The reference computes no alignment in any mode (``driver.cpp:35``); both
@@ -42,25 +35,6 @@ from ..utils import native
 
 #: cores at or below this many cells take the exact full-table walk
 LEAF_CELLS = 4 * 1024 * 1024
-
-
-def _device_path_ok(cfg: ScoringConfig, m: int, n: int,
-                    engine: EngineConfig) -> bool:
-    """True when the band strip machinery can serve this problem's locate
-    and core fills on the accelerator (or interpreted, for tests)."""
-    from .band import MAX_BOUNDARY, _wmax
-
-    if cfg.is_affine:
-        return False
-    if min(m, n) > MAX_BOUNDARY:
-        return False
-    if (m + n) * _wmax(cfg) > 2**29:
-        return False
-    if engine.interpret:
-        return True
-    from .. import api
-
-    return api._platform() == "tpu"
 
 
 def _align_global_matrix(
@@ -104,14 +78,6 @@ def _align_core(
     gcfg = cfg.with_mode(AlignMode.GLOBAL)
     if not cfg.has_matrix:
         return api.align(s1, s2, gcfg, engine)
-    if _device_path_ok(gcfg, int(s1.size), int(s2.size), engine):
-        from . import band_align
-
-        try:  # k-way band recovery with matrix profile planes (round 5)
-            return band_align.align_global(
-                s1, s2, gcfg, interpret=engine.interpret)
-        except ValueError:
-            pass  # fall back to the native Hirschberg bisection
     from . import oracle
 
     a1, a2 = _align_global_matrix(s1, s2, gcfg)
@@ -163,25 +129,14 @@ def align_large(
             raise AssertionError(
                 f"affine core score {core_score} != locate score {sc}")
         return sc, a1, a2
-    device = _device_path_ok(cfg, m, n, engine)
     if cfg.mode is AlignMode.GLOBAL:
         # matrix-scored global alignment: the whole problem is the core
         return _align_core(s1, s2, cfg, engine)
-    if cfg.mode is AlignMode.LOCAL and device:
-        from . import band_align
-
-        try:  # matrix-SW on the band locate + k-way machinery (round 5)
-            return band_align.align_local(
-                s1, s2, cfg, interpret=engine.interpret)
-        except ValueError:
-            device = False  # tie-split or masked config: native path
-    sc, ie, je = _locate(s1, s2, cfg, device, engine)
+    sc, ie, je = native.locate_flex(s1, s2, cfg)
     if ie == 0 or je == 0:
         return sc, "", ""  # empty core (nothing profitably aligned)
-    sc2, pi, qj = _locate(
-        s1[:je][::-1].copy(), s2[:ie][::-1].copy(), cfg, device, engine,
-        anchored=True,
-    )
+    sc2, pi, qj = native.locate_flex(
+        s1[:je][::-1].copy(), s2[:ie][::-1].copy(), cfg, anchored=True)
     if sc2 != sc:  # pragma: no cover - would indicate a locate bug
         raise AssertionError(
             f"start-locate score {sc2} != end-locate score {sc}")
@@ -192,14 +147,3 @@ def align_large(
         raise AssertionError(f"core score {core_score} != locate score {sc}")
     return sc, a1, a2
 
-
-def _locate(s1, s2, cfg, device, engine, *, anchored=False):
-    """End/start-locate pass: ONE device band fill on TPU (ends-free
-    modes), the native O(m)-memory CPU scan otherwise (and for the local
-    all-cells extraction, which band_align.align_local handles above)."""
-    if device and cfg.is_ends_free:
-        from . import band_align
-
-        return band_align.locate_flex_device(
-            s1, s2, cfg, anchored=anchored, interpret=engine.interpret)
-    return native.locate_flex(s1, s2, cfg, anchored=anchored)

@@ -1,14 +1,16 @@
-"""Pure-XLA (jax.lax) scorers — portable across TPU and CPU.
+"""Pure-XLA (jax.lax) scorers — portable across GPU and CPU.
 
 This is the framework's "serial" implementation family (successor of the
-reference's ``src/serial/serial.cpp`` / ``blocked-serial.cpp``): one device, no
-Pallas, compiler-scheduled.  It exists for three reasons:
+reference's ``src/serial/serial.cpp`` / ``blocked-serial.cpp``): one device,
+compiler-scheduled.  It serves three roles:
 
-1. a device-resident oracle that runs anywhere (tests execute it on CPU),
-2. the per-shard chunk fill inside the multi-chip strip pipeline
+1. the engine for every scoring config the bit-parallel kernel does not
+   cover (local, general linear, affine, matrix, ends-free), and for every
+   config on a backend without that kernel;
+2. the per-shard chunk fill inside the multi-device strip pipeline
    (``tpualign.parallel.strips``), where it must compile under ``shard_map``
-   on a virtual CPU mesh as well as on real chips,
-3. a fallback when Pallas is unavailable.
+   on a virtual CPU mesh as well as on real devices;
+3. a device-resident reference that runs anywhere (tests execute it on CPU).
 
 The row update uses the max-plus prefix-scan identity (see ``ops/oracle.py``):
 the in-row ``left`` dependency ``H[j] = max(T[j], H[j-1]+g)`` becomes
@@ -21,6 +23,7 @@ All values are int32, matching the reference's table type.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Optional, Tuple
 
@@ -274,12 +277,20 @@ def _batch_affine_impl(
     return jax.vmap(one)(texts, queries, mts, nqs)
 
 
+def score_batch(texts, queries, cfg: ScoringConfig) -> "np.ndarray":
+    """Scores for a batch of pair-scored global or local configs in one
+    device dispatch.  Linear gaps run as affine gaps with ``gap_open = 0``,
+    which is the same recurrence."""
+    if not cfg.is_affine:
+        cfg = dataclasses.replace(cfg, gap_open=0, gap_extend=cfg.gap)
+    return score_batch_affine(texts, queries, cfg)
+
+
 def score_batch_affine(texts, queries, cfg: ScoringConfig) -> "np.ndarray":
     """Gotoh scores for a batch of pairs in one device dispatch.
 
     ``texts``/``queries`` are sequences of int arrays; pairs pad to the
-    batch's (m_cap, n_cap) bucket.  The serving-path analog of the
-    bit-parallel/band batch kernels for affine configs."""
+    batch's (m_cap, n_cap) bucket."""
     import numpy as np
 
     if not cfg.is_affine:
@@ -287,7 +298,7 @@ def score_batch_affine(texts, queries, cfg: ScoringConfig) -> "np.ndarray":
     from ..config import ensure_pair_modes
 
     # the vmapped scan scores with match/mismatch and extracts global/local
-    # only — matrix / ends-free configs must not reach it (ADVICE r4)
+    # only — matrix / ends-free configs must not reach it
     ensure_pair_modes(cfg, "score_batch_affine")
     batch = len(texts)
     if batch == 0:

@@ -13,8 +13,9 @@ def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = Non
     """1-D mesh over the sequence (column) axis.
 
     The reference's process grid is likewise 1-D: MPI ranks own column strips
-    (``mpi-vert-driver.cpp:35-38``).  Multi-host slices extend the same axis
-    transparently — ICI within a slice, DCN across hosts.
+    (``mpi-vert-driver.cpp:35-38``).  The mesh is a flat device list: GPUs
+    of one host reach each other all to all over NVLink, so the order of
+    the devices along the axis does not matter.
     """
     if devices is None:
         devices = jax.devices()

@@ -8,8 +8,8 @@ blocking ``MPI_Send``/``MPI_Recv`` of the boundary column (``COMMBUF_SIZE``-row
 pieces, ``nw-mpi.hpp:18``).  Here the same wavefront pipeline is expressed as an
 SPMD program under ``jax.shard_map``: one ``lax.scan`` over super-steps, where
 each step every chip fills one chunk of its strip and the boundary column moves
-one chip to the right via ``lax.ppermute`` — XLA lays the halo exchange on ICI
-(and DCN across hosts) with no rank-role case analysis (the reference needs
+one chip to the right via ``lax.ppermute`` — XLA hands the halo exchange to
+NCCL over NVLink, with no rank-role case analysis (the reference needs
 three: send-only rank 0, recv-only last rank, middle ranks, ``mpi-horz.cpp:23-96``).
 
 At super-step ``t`` chip ``c`` works on chunk ``h = t - c``; chips outside
